@@ -7,7 +7,7 @@ Data: y is drawn from a KNOWN RBF GP via random Fourier features
 enough to test hyperparameter recovery) plus Gaussian noise. The fit
 starts from a deliberately wrong init; the capture records:
   - steady steps/s of map_opt.fit_iterative (split-program schedule,
-    host-refreshed pivoted-Cholesky preconditioner)
+    refreshed pivoted-Cholesky preconditioner)
   - recovered log-hyperparameters vs the generating truth
   - dense-subsample LML at init vs fitted params (oracle-checked
     improvement on a 16k subsample)
@@ -60,8 +60,8 @@ def main(argv=None):
                 if a.startswith("--"))
     if "--platform" in args:
         jax.config.update("jax_platforms", args["--platform"])
-    on_tpu = jax.default_backend() == "tpu"
-    n = int(args.get("--n", 100_000 if on_tpu else 4096))
+    on_gpu = jax.default_backend() == "gpu"
+    n = int(args.get("--n", 100_000 if on_gpu else 4096))
     d = int(args.get("--d", 4))
     steps = int(args.get("--steps", 12))
     lr = float(args.get("--lr", 0.1))
@@ -136,7 +136,7 @@ def main(argv=None):
     wall = time.perf_counter() - t0
 
     # steady steps/s: median of post-compile steps that did NOT rebuild
-    # the preconditioner (those pay the host pivot loop)
+    # the preconditioner (those pay the pivot loop)
     refresh_mod = refresh if refresh else steps + 1  # adaptive: keep all
     non_refresh = [w for i, w in enumerate(step_walls)
                    if i % refresh_mod != 0 and i > 0]

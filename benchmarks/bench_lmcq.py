@@ -46,8 +46,8 @@ def main(argv=None):
                 if a.startswith("--"))
     if "--platform" in args:
         jax.config.update("jax_platforms", args["--platform"])
-    on_tpu = jax.default_backend() == "tpu"
-    n = int(args.get("--n", 32768 if on_tpu else 4096))
+    on_gpu = jax.default_backend() == "gpu"
+    n = int(args.get("--n", 32768 if on_gpu else 4096))
     d = int(args.get("--d", 2))
     p = int(args.get("--p", 2))
     m = int(args.get("--m", 512))

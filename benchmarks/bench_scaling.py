@@ -1,10 +1,10 @@
 """Benchmark harness (C14): posterior samples/s scaling over the chain-DP
 axis (the BASELINE.json:2 "posterior samples/s scaling 1->N hosts" metric).
 
-On real pods, run one process per host (runtime.initialize) and the dp axis
-spans hosts; on this single-chip box the scaling shape is validated on
-faked CPU devices (--fake=8) — the collective structure is identical, only
-the per-chip speed differs.
+On several hosts, run one process per host (runtime.initialize) and the dp
+axis spans hosts; without them the scaling shape is validated on faked
+CPU devices (--fake=8) — the collective structure is identical, only the
+per-device speed differs.
 
 Usage: python benchmarks/bench_scaling.py [--fake=8] [--dp=1,2,4] [--n=512]
 """

@@ -26,8 +26,8 @@ def main(argv=None):
                 if a.startswith("--"))
     if "--platform" in args:
         jax.config.update("jax_platforms", args["--platform"])
-    on_tpu = jax.default_backend() == "tpu"
-    n = int(args.get("--n", 131072 if on_tpu else 4096))
+    on_gpu = jax.default_backend() == "gpu"
+    n = int(args.get("--n", 131072 if on_gpu else 4096))
     m = int(args.get("--m", 512))
     d = int(args.get("--d", 4))
     steps = int(args.get("--steps", 50))

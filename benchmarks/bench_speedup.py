@@ -1,4 +1,4 @@
-"""Benchmark harness (C14): TPU pipeline vs the serial C++ baseline.
+"""Benchmark harness (C14): the JAX pipeline vs the serial C++ baseline.
 
 The reference's README-style table — speedup of the accelerated pipeline
 over the single-thread CPU implementation on the same problem (the serial

@@ -6,6 +6,8 @@ log-density (LML + prior), dispatches to hmc/nuts, and unflattens samples.
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 from jax.flatten_util import ravel_pytree
@@ -25,9 +27,12 @@ from cugp_tpu.models import exact_gp
 _LOGPROB_CACHE = {}
 _LOGPROB_CACHE_MAX = 8
 
-# shared default probe key for make_iterative_logprob (stable object
-# identity keeps the closure cache effective for default-key callers)
-_DEFAULT_PROBE_KEY = jax.random.key(7)
+@functools.cache
+def _default_probe_key():
+    """Shared default probe key for make_iterative_logprob (stable object
+    identity keeps the closure cache effective for default-key callers);
+    made on first use, so importing this module does no device work."""
+    return jax.random.key(7)
 
 
 def make_flat_logprob(init_params, X, y, kind="rbf", jitter=1e-6,
@@ -167,16 +172,12 @@ def sample_hyperparams_checkpointed(
         key = jax.random.key(0)
     key_init, key_warm = jax.random.split(key)
     if engine == "iterative" and probe_key is None:
-        probe_key = _DEFAULT_PROBE_KEY
+        probe_key = _default_probe_key()
 
     def build_precond(at_params):
         from cugp_tpu.inference import iterative
 
-        where = precond_where
-        if where == "auto":
-            where = ("host" if jax.default_backend() == "tpu"
-                     else "device")
-        build = (iterative.precond_factors_host if where == "host"
+        build = (iterative.precond_factors_host if precond_where == "host"
                  else iterative.precond_factors)
         return build(at_params, X, precond_rank, kind=kind, jitter=jitter)
 
@@ -483,7 +484,7 @@ def make_iterative_logprob(init_params, X, y, *, kind="rbf", jitter=1e-6,
     if probe_key is None:
         # module-level default: a fresh key object per call would defeat
         # the identity-keyed closure cache below
-        probe_key = _DEFAULT_PROBE_KEY
+        probe_key = _default_probe_key()
 
     cache_key = (id(X), id(y), kind, jitter, block, tol, max_iters,
                  num_probes, num_steps, id(probe_key),
@@ -562,9 +563,6 @@ def sample_hyperparams_iterative(
         key = jax.random.key(0)
     precond = None
     if precond_rank:
-        if precond_where == "auto":
-            precond_where = ("host" if jax.default_backend() == "tpu"
-                             else "device")
         if precond_where == "host":
             precond = iterative.precond_factors_host(
                 init_params, X, precond_rank, kind=kind, jitter=jitter)

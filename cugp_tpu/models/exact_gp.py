@@ -2,7 +2,7 @@
 
 Pure functions composing the ops tier (C1 covariance, C2 Cholesky, C4 TRSM)
 into the log-marginal likelihood, its gradients (via jax.grad through the
-custom-VJP Cholesky), and the posterior predictive. This is the TPU-native
+custom-VJP Cholesky), and the posterior predictive. This is the JAX
 analog of the reference's hand-derived CUDA LML/gradient kernels
 (BASELINE.json:5, "log-marginal-likelihood gradients for hyperparameter
 learning", "triangular solves for the posterior mean/variance").
@@ -53,13 +53,13 @@ def safe_cholesky(K, sf2, method="auto", max_attempts=2, jitter0=1e-6):
 def _factorize(params, X, y, kind, jitter, method, safe=True, n_true=None):
     """K -> L, alpha = K^{-1} y."""
     K = kernel_ops.train_covariance(params, X, kind=kind, jitter=jitter,
-                                    method=method, n_true=n_true)
+                                    n_true=n_true)
     if safe:
         sf2 = kernel_ops.signal_scale(params)
         L = safe_cholesky(K, sf2, method=method, jitter0=max(jitter, 1e-6))
     else:
         L = chol_ops.cholesky(K, method=method)
-    alpha = trsm_ops.cho_solve(L, y, method="xla" if method == "auto" else method)
+    alpha = trsm_ops.cho_solve(L, y)
     return L, alpha
 
 
@@ -99,11 +99,11 @@ def posterior(params, X, y, Xs, kind="rbf", jitter=1e-6, method="auto",
     covariance rows beyond it are masked so padded rows don't contribute).
     """
     L, alpha = _factorize(params, X, y, kind, jitter, method, True, n_true)
-    Ks = kernel_ops.cross_covariance(params, X, Xs, kind=kind, method=method,
+    Ks = kernel_ops.cross_covariance(params, X, Xs, kind=kind,
                                      n_true=n_true)
     mu = jnp.einsum("nm,n->m", Ks, alpha,
                     precision=jax.lax.Precision.HIGHEST)
-    V = trsm_ops.solve_lx(L, Ks, method="xla" if method == "auto" else method)
+    V = trsm_ops.solve_lx(L, Ks)
     kss = kernel_ops.kernel_diag(params, Xs, kind)
     var = kss - jnp.sum(V * V, axis=0)
     if include_noise:
@@ -115,11 +115,11 @@ def posterior(params, X, y, Xs, kind="rbf", jitter=1e-6, method="auto",
 def posterior_full_cov(params, X, y, Xs, kind="rbf", jitter=1e-6, method="auto"):
     """Posterior mean and FULL covariance at test points Xs."""
     L, alpha = _factorize(params, X, y, kind, jitter, method)
-    Ks = kernel_ops.cross_covariance(params, X, Xs, kind=kind, method=method)
-    Kss = kernel_ops.cross_covariance(params, Xs, Xs, kind=kind, method=method)
+    Ks = kernel_ops.cross_covariance(params, X, Xs, kind=kind)
+    Kss = kernel_ops.cross_covariance(params, Xs, Xs, kind=kind)
     mu = jnp.einsum("nm,n->m", Ks, alpha,
                     precision=jax.lax.Precision.HIGHEST)
-    V = trsm_ops.solve_lx(L, Ks, method="xla" if method == "auto" else method)
+    V = trsm_ops.solve_lx(L, Ks)
     cov = Kss - jnp.matmul(V.T, V, precision=jax.lax.Precision.HIGHEST)
     return mu, cov
 
@@ -134,12 +134,10 @@ def posterior_full_cov(params, X, y, Xs, kind="rbf", jitter=1e-6, method="auto")
 def log_marginal_likelihood_multi(params, X, Y, kind="rbf", jitter=1e-6,
                                   method="auto"):
     """Sum of per-output LMLs for Y (n, p) under one shared kernel."""
-    K = kernel_ops.train_covariance(params, X, kind=kind, jitter=jitter,
-                                    method=method)
+    K = kernel_ops.train_covariance(params, X, kind=kind, jitter=jitter)
     sf2 = kernel_ops.signal_scale(params)
     L = safe_cholesky(K, sf2, method=method, jitter0=max(jitter, 1e-6))
-    solve_method = "xla" if method == "auto" else method
-    alpha = trsm_ops.cho_solve(L, Y, method=solve_method)  # (n, p)
+    alpha = trsm_ops.cho_solve(L, Y)  # (n, p)
     n, p = Y.shape
     logdet_half = jnp.sum(jnp.log(jnp.diagonal(L)))
     quad = jnp.sum(Y * alpha, axis=0)  # (p,)
@@ -151,15 +149,13 @@ def log_marginal_likelihood_multi(params, X, Y, kind="rbf", jitter=1e-6,
 def posterior_multi(params, X, Y, Xs, kind="rbf", jitter=1e-6,
                     method="auto", include_noise=False):
     """Posterior means (ns, p) and shared diagonal variance (ns,)."""
-    K = kernel_ops.train_covariance(params, X, kind=kind, jitter=jitter,
-                                    method=method)
+    K = kernel_ops.train_covariance(params, X, kind=kind, jitter=jitter)
     sf2 = kernel_ops.signal_scale(params)
     L = safe_cholesky(K, sf2, method=method, jitter0=max(jitter, 1e-6))
-    solve_method = "xla" if method == "auto" else method
-    alpha = trsm_ops.cho_solve(L, Y, method=solve_method)
-    Ks = kernel_ops.cross_covariance(params, X, Xs, kind=kind, method=method)
+    alpha = trsm_ops.cho_solve(L, Y)
+    Ks = kernel_ops.cross_covariance(params, X, Xs, kind=kind)
     mu = jnp.matmul(Ks.mT, alpha, precision=jax.lax.Precision.HIGHEST)
-    V = trsm_ops.solve_lx(L, Ks, method=solve_method)
+    V = trsm_ops.solve_lx(L, Ks)
     var = kernel_ops.kernel_diag(params, Xs, kind) - jnp.sum(V * V, axis=0)
     if include_noise:
         var = var + jnp.exp(params["log_noise_var"])
@@ -187,8 +183,7 @@ def basis_matrix(X, basis):
 
 def _basis_terms(L, y, H, method):
     """A = H K^-1 H^T, c = H K^-1 y, and K^-1 H^T (shared solves)."""
-    solve_method = "xla" if method == "auto" else method
-    KinvHt = trsm_ops.cho_solve(L, H.T, method=solve_method)  # (n, m_b)
+    KinvHt = trsm_ops.cho_solve(L, H.T)  # (n, m_b)
     A = jnp.matmul(H, KinvHt, precision=jax.lax.Precision.HIGHEST)
     m_b = A.shape[0]
     A = A + 1e-8 * jnp.eye(m_b, dtype=A.dtype) * jnp.trace(A) / m_b
@@ -209,7 +204,7 @@ def log_marginal_likelihood_basis(params, X, y, kind="rbf", jitter=1e-6,
     H = basis_matrix(X, basis)
     A, c, _ = _basis_terms(L, y, H, method)
     La = chol_ops.cholesky(A, method="xla")
-    w = trsm_ops.solve_lx(La, c, method="xla")
+    w = trsm_ops.solve_lx(La, c)
     m_b = H.shape[0]
     return (lml0 + 0.5 * jnp.sum(w * w)
             - jnp.sum(jnp.log(jnp.diagonal(La))) + 0.5 * m_b * LOG2PI)
@@ -226,23 +221,22 @@ def posterior_basis(params, X, y, Xs, kind="rbf", jitter=1e-6, method="auto",
     Returns (mu, var, beta_hat).
     """
     L, alpha = _factorize(params, X, y, kind, jitter, method)
-    Ks = kernel_ops.cross_covariance(params, X, Xs, kind=kind, method=method)
+    Ks = kernel_ops.cross_covariance(params, X, Xs, kind=kind)
     mu0 = jnp.einsum("nm,n->m", Ks, alpha,
                      precision=jax.lax.Precision.HIGHEST)
-    solve_method = "xla" if method == "auto" else method
-    V = trsm_ops.solve_lx(L, Ks, method=solve_method)
+    V = trsm_ops.solve_lx(L, Ks)
     var0 = kernel_ops.kernel_diag(params, Xs, kind) - jnp.sum(V * V, axis=0)
 
     H = basis_matrix(X, basis)
     Hs = basis_matrix(Xs, basis)
     A, c, KinvHt = _basis_terms(L, y, H, method)
     La = chol_ops.cholesky(A, method="xla")
-    beta = trsm_ops.cho_solve(La, c, method="xla")
+    beta = trsm_ops.cho_solve(La, c)
     R = Hs - jnp.matmul(KinvHt.mT, Ks,
                         precision=jax.lax.Precision.HIGHEST)  # (m_b, ns)
     mu = mu0 + jnp.einsum("bm,b->m", R, beta,
                           precision=jax.lax.Precision.HIGHEST)
-    W = trsm_ops.solve_lx(La, R, method="xla")
+    W = trsm_ops.solve_lx(La, R)
     var = var0 + jnp.sum(W * W, axis=0)
     if include_noise:
         var = var + jnp.exp(params["log_noise_var"])
@@ -256,25 +250,23 @@ def posterior_basis_full_cov(params, X, y, Xs, kind="rbf", jitter=1e-6,
     (GPML eq. 2.42): cov = cov_0 + R^T A^-1 R with
     R = H(Xs) - H K^-1 K*. Returns (mu, cov, beta_hat)."""
     L, alpha = _factorize(params, X, y, kind, jitter, method)
-    Ks = kernel_ops.cross_covariance(params, X, Xs, kind=kind, method=method)
-    Kss = kernel_ops.cross_covariance(params, Xs, Xs, kind=kind,
-                                      method=method)
+    Ks = kernel_ops.cross_covariance(params, X, Xs, kind=kind)
+    Kss = kernel_ops.cross_covariance(params, Xs, Xs, kind=kind)
     mu0 = jnp.einsum("nm,n->m", Ks, alpha,
                      precision=jax.lax.Precision.HIGHEST)
-    solve_method = "xla" if method == "auto" else method
-    V = trsm_ops.solve_lx(L, Ks, method=solve_method)
+    V = trsm_ops.solve_lx(L, Ks)
     cov0 = Kss - jnp.matmul(V.T, V, precision=jax.lax.Precision.HIGHEST)
 
     H = basis_matrix(X, basis)
     Hs = basis_matrix(Xs, basis)
     A, c, KinvHt = _basis_terms(L, y, H, method)
     La = chol_ops.cholesky(A, method="xla")
-    beta = trsm_ops.cho_solve(La, c, method="xla")
+    beta = trsm_ops.cho_solve(La, c)
     R = Hs - jnp.matmul(KinvHt.mT, Ks,
                         precision=jax.lax.Precision.HIGHEST)  # (m_b, ns)
     mu = mu0 + jnp.einsum("bm,b->m", R, beta,
                           precision=jax.lax.Precision.HIGHEST)
-    W = trsm_ops.solve_lx(La, R, method="xla")
+    W = trsm_ops.solve_lx(La, R)
     cov = cov0 + jnp.matmul(W.T, W, precision=jax.lax.Precision.HIGHEST)
     return mu, cov, beta
 
@@ -298,9 +290,7 @@ def loo_cv(params, X, y, kind="rbf", jitter=1e-6, method="auto"):
     """
     L, alpha = _factorize(params, X, y, kind, jitter, method)
     n = y.shape[-1]
-    solve_method = "xla" if method == "auto" else method
-    Linv = trsm_ops.solve_lx(L, jnp.eye(n, dtype=L.dtype),
-                             method=solve_method)
+    Linv = trsm_ops.solve_lx(L, jnp.eye(n, dtype=L.dtype))
     c = jnp.maximum(jnp.sum(Linv * Linv, axis=0), 1e-30)
     var = 1.0 / c
     mu = y - alpha / c
@@ -327,11 +317,10 @@ def lml_gradients_analytic(params, X, y, kind="rbf", jitter=1e-6, method="auto")
     this way in CUDA). Cost: one Cholesky + explicit K^{-1} (two TRSMs).
     """
     kernel_ops.require_base_kind(kind, "lml_gradients_analytic")
-    solve_method = "xla" if method == "auto" else method
     L, alpha = _factorize(params, X, y, kind, jitter, method)
     n = X.shape[0]
     eye = jnp.eye(n, dtype=L.dtype)
-    Kinv = trsm_ops.cho_solve(L, eye, method=solve_method)
+    Kinv = trsm_ops.cho_solve(L, eye)
     W = jnp.outer(alpha, alpha) - Kinv
 
     ell = jnp.exp(params["log_lengthscale"])

@@ -1,6 +1,6 @@
 """Binary GP classification (Laplace approximation) — beyond-parity model
 family. The reference covers GP regression only; this adds the classic
-companion (GPML ch. 3) on the same TPU-native ops tier: covariance from
+companion (GPML ch. 3) on the same ops tier: covariance from
 C1, Cholesky from C2, everything jitted with static Newton/step counts.
 
 Model: y in {-1, +1}, logistic likelihood p(y|f) = sigmoid(y f), GP prior
@@ -33,8 +33,7 @@ def _log_sigmoid(z):
 
 
 def _newton_state(params, X, kind, jitter, method):
-    K = kernel_ops.train_covariance(params, X, kind=kind, jitter=jitter,
-                                    method=method)
+    K = kernel_ops.train_covariance(params, X, kind=kind, jitter=jitter)
     return K
 
 
@@ -114,7 +113,7 @@ def predict_proba(params, X, y, Xs, kind="rbf", jitter=1e-6, method="auto",
     B = jnp.eye(n, dtype=K.dtype) + sw[:, None] * K * sw[None, :]
     L = chol_ops.cholesky(B, method="xla")
 
-    Ks = kernel_ops.cross_covariance(params, X, Xs, kind=kind, method=method)
+    Ks = kernel_ops.cross_covariance(params, X, Xs, kind=kind)
     mu = jnp.einsum("nm,n->m", Ks, grad, precision=_HI)
     v = trsm_ops.solve_lx(L, sw[:, None] * Ks)
     kss = kernel_ops.kernel_diag(params, Xs, kind)

@@ -6,10 +6,10 @@ for classification posteriors (GPML sec. 3.7.2).
 Model: y in {-1, +1}, PROBIT likelihood p(y|f) = Phi(y f), GP prior
 f ~ N(0, K). Each likelihood term is approximated by a scaled Gaussian
 site t~_i(f_i) = Z~_i N(f_i | nu~_i/tau~_i, 1/tau~_i) (natural
-parameters tau~ >= 0, nu~). TPU-first structure: PARALLEL EP — every
+parameters tau~ >= 0, nu~). Structure: PARALLEL EP — every
 sweep recomputes the joint posterior once (one Cholesky of
-B = I + S~^1/2 K S~^1/2 on the MXU) and then moment-matches ALL sites
-simultaneously on the VPU (vectorized cavity + probit-moment algebra,
+B = I + S~^1/2 K S~^1/2) and then moment-matches ALL sites
+simultaneously (vectorized cavity + probit-moment algebra,
 no sequential rank-1 updates), with damping on the natural parameters
 for convergence. Fixed sweep count inside a lax.scan keeps the graph
 static and lets hyperparameter gradients flow by AD, exactly like the
@@ -106,8 +106,7 @@ def ep_lml(params, X, y, kind="rbf", jitter=1e-6, method="auto",
            num_sweeps=30, damping=0.7):
     """EP approximate log marginal likelihood (module-docstring formula,
     QMC-verified in tests)."""
-    K = kernel_ops.train_covariance(params, X, kind=kind, jitter=jitter,
-                                    method=method)
+    K = kernel_ops.train_covariance(params, X, kind=kind, jitter=jitter)
     tau, nu, mu, s2 = _ep_sweeps(K, y, num_sweeps, damping)
     n = y.shape[0]
     # cavities at the fixed point
@@ -140,13 +139,11 @@ def predict_proba(params, X, y, Xs, kind="rbf", jitter=1e-6, method="auto",
     """Predictive p(y=+1 | x*) (GPML eqs. 3.60-3.61 — the probit
     integral is EXACT for EP, unlike the Laplace/MacKay approximation).
     Returns (prob, f_mean, f_var)."""
-    K = kernel_ops.train_covariance(params, X, kind=kind, jitter=jitter,
-                                    method=method)
+    K = kernel_ops.train_covariance(params, X, kind=kind, jitter=jitter)
     tau, nu, _mu, _s2 = _ep_sweeps(K, y, num_sweeps, damping)
     _m, _v, L, sr = _posterior_from_sites(K, tau, nu)
 
-    Ks = kernel_ops.cross_covariance(params, X, Xs, kind=kind,
-                                     method=method)          # (n, m)
+    Ks = kernel_ops.cross_covariance(params, X, Xs, kind=kind)  # (n, m)
     # mu* = k*^T (K + S^-1)^-1 mu_t = k*^T S^1/2 B^-1 S^1/2 mu_t
     mu_t = nu / tau
     w = trsm_ops.solve_ltx(L, trsm_ops.solve_lx(L, sr * mu_t))

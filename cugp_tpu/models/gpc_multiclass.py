@@ -9,9 +9,9 @@ trivial vmap extension and are documented, not implemented, to keep the
 hyperparameter surface honest). Likelihood is the softmax
 p(y=c | f_i) = exp(f_ic) / sum_c' exp(f_ic').
 
-TPU-first structure: the per-class Cholesky factorizations
+Structure: the per-class Cholesky factorizations
 L_c = chol(I + D_c^{1/2} K D_c^{1/2}) and the per-class E_c matrices are
-batched over the class axis with ``vmap`` (one MXU-friendly batched
+batched over the class axis with ``vmap`` (one batched
 program, not a Python loop over classes), and the Newton iteration is a
 fixed-length ``lax.scan`` so hyperparameter gradients flow by AD through
 the unrolled scan exactly as in the binary model.
@@ -109,8 +109,7 @@ def laplace_lml(params, X, Y, kind="rbf", jitter=1e-6, method="auto",
     (determinant split proved in the module docstring, brute-force
     verified in tests). AD through the Newton scan gives gradients.
     """
-    K = kernel_ops.train_covariance(params, X, kind=kind, jitter=jitter,
-                                    method=method)
+    K = kernel_ops.train_covariance(params, X, kind=kind, jitter=jitter)
     f, a, obj = _laplace_mode(K, Y, num_newton)
     pi = jax.nn.softmax(f, axis=1)
     L, _E, M = _class_factors(K, pi)
@@ -135,14 +134,12 @@ def predict_proba(params, X, Y, Xs, kind="rbf", jitter=1e-6, method="auto",
     """
     if key is None:
         key = jax.random.key(0)
-    K = kernel_ops.train_covariance(params, X, kind=kind, jitter=jitter,
-                                    method=method)
+    K = kernel_ops.train_covariance(params, X, kind=kind, jitter=jitter)
     f, _a, _obj = _laplace_mode(K, Y, num_newton)
     pi = jax.nn.softmax(f, axis=1)
     _L, E, M = _class_factors(K, pi)
 
-    Ks = kernel_ops.cross_covariance(params, X, Xs, kind=kind,
-                                     method=method)              # (n, m)
+    Ks = kernel_ops.cross_covariance(params, X, Xs, kind=kind)  # (n, m)
     mu = jnp.matmul(Ks.T, Y - pi, precision=_HI)                 # (m, C)
     b = jnp.einsum("cij,jm->cim", E, Ks, precision=_HI)          # E_c k*
     q = jnp.einsum("im,cim->cm", Ks, b, precision=_HI)           # k* E k*

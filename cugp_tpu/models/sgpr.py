@@ -16,7 +16,7 @@ computed through m x m factorizations only:
 
 With Z = X (m = n) the bound equals the exact LML (up to jitter), which is
 the correctness oracle used in tests. All dense ops ride the same
-MXU-tiled covariance/Cholesky tier as the exact model.
+covariance/Cholesky tier as the exact model.
 """
 
 from __future__ import annotations

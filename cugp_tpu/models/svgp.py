@@ -27,7 +27,7 @@ For the Gaussian likelihood the optimal q(v) is available in closed form
 the bound COLLAPSES to models/sgpr.elbo — `optimal_variational` computes
 it (used as a warm start and as the correctness oracle in tests).
 
-All dense ops (K_mm, K_mB, the m x m Cholesky) ride the same MXU tier as
+All dense ops (K_mm, K_mB, the m x m Cholesky) ride the same ops tier as
 the exact model. The reference (BASELINE.json:5) has no scalable or
 non-Gaussian surface at all; this extends the config ladder past both.
 """

@@ -11,7 +11,7 @@ from jax import lax
 
 # Size at or below which recursions stop and call the base-case kernel.
 BASE = 1024
-# Recursion split sizes are rounded to multiples of this (MXU-friendly).
+# Recursion split sizes are rounded to multiples of this (GEMM-friendly).
 ALIGN = 256
 
 HI = lax.Precision.HIGHEST

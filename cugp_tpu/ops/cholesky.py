@@ -1,21 +1,19 @@
 """Cholesky factorization — component C2 (SURVEY.md section 2).
 
 The reference uses a custom "cuSOLVER-style" CUDA Cholesky (BASELINE.json:5).
-The TPU-native design here is a *recursive blocked right-looking* factorization:
+``method="xla"`` is ``jax.lax.linalg.cholesky`` (cuSOLVER potrf on the GPU).
+``method="blocked"`` is a *recursive blocked right-looking* factorization:
 
     A = [[A11, .  ],          L11 = chol(A11)
-         [A21, A22]]   ==>    L21 = A21 L11^{-T}          (blocked TRSM, MXU)
-                              L22 = chol(A22 - L21 L21^T) (SYRK update, MXU)
+         [A21, A22]]   ==>    L21 = A21 L11^{-T}          (blocked TRSM, GEMMs)
+                              L22 = chol(A22 - L21 L21^T) (SYRK update, GEMM)
 
 The recursion is unrolled at trace time (N is static under jit), so every
-GEMM/TRSM in the program has a static, MXU-aligned shape and XLA schedules
-them back-to-back on the systolic array. The base case is a Pallas blocked
-potrf kernel that factorizes a diagonal block entirely in VMEM
-(``chol_pallas.py``). All matmuls on the critical path run with
-``precision=HIGHEST`` — fp32 accuracy on the MXU — because Cholesky of badly
-conditioned covariances is destroyed by bf16 passthrough.
-
-``method="xla"`` falls back to ``jax.lax.linalg.cholesky``.
+GEMM/TRSM in the program has a static shape and goes to cuBLAS; the base
+case is ``lax.linalg.cholesky`` on a block of at most ``BASE`` rows. All
+matmuls on the critical path run with ``precision=HIGHEST`` — IEEE fp32,
+no TF32 — because Cholesky of badly conditioned covariances is destroyed
+by reduced-precision products.
 
 The custom VJP implements the standard Cholesky reverse-mode rule
 (differentiating the factorization, not the recursion), so gradients cost two
@@ -36,15 +34,11 @@ from cugp_tpu.ops.blocking import BASE as _BASE, HI as _HI
 from cugp_tpu.ops.blocking import split_point as _split_point
 
 
-def _base_potrf(a, method):
+def _base_potrf(a):
     # rebuild the (possibly garbage) upper triangle from the lower one —
     # callers may hand us SYRK-lower results (see _syrk_lower)
     lower = jnp.tril(a)
     a = lower + jnp.triu(lower.mT, 1)
-    if method == "pallas":
-        from cugp_tpu.ops import chol_pallas
-
-        return chol_pallas.potrf(a)
     return lax.linalg.cholesky(a)
 
 
@@ -55,8 +49,8 @@ _SYRK_FULL = 4096
 
 # "mixed" policy: quadrants containing the diagonal keep full-fp32
 # (HIGHEST) updates at or below this size; strictly-off-diagonal update
-# GEMMs run at HIGH (bf16_3x — same fp32 accumulator, 3 bf16 input
-# passes instead of 6, ~the MXU's nominal rate). Error analysis: the
+# GEMMs run at HIGH (a reduced-precision product with the same fp32
+# accumulator; on the GPU XLA runs HIGH as TF32). Error analysis: the
 # Cholesky recursion is only sensitive where pivots are FORMED (the
 # diagonal path); off-diagonal trailing blocks enter later pivots
 # through a second GEMM that re-rounds anyway. Round-3 VERDICT weak #1 /
@@ -92,51 +86,44 @@ def _syrk_lower(a, p, precision, offdiag_precision=None):
     return jnp.concatenate([top, bot], axis=-2)
 
 
-def _chol_recursive(a, method, precision, offdiag_precision=None):
+def _chol_recursive(a, precision, offdiag_precision=None):
     n = a.shape[-1]
     if n <= _BASE:
-        return _base_potrf(a, method)
+        return _base_potrf(a)
     m = _split_point(n)
     a11 = a[..., :m, :m]
     a21 = a[..., m:, :m]
     a22 = a[..., m:, m:]
-    l11 = _chol_recursive(a11, method, precision, offdiag_precision)
+    l11 = _chol_recursive(a11, precision, offdiag_precision)
     # L21 = A21 L11^{-T}  (solve X L11^T = A21)
-    l21 = trsm_ops.solve_xlt(l11, a21, method=method, precision=precision)
+    l21 = trsm_ops.solve_xlt(l11, a21, precision=precision)
     s = _syrk_lower(a22, l21, precision, offdiag_precision)
-    l22 = _chol_recursive(s, method, precision, offdiag_precision)
+    l22 = _chol_recursive(s, precision, offdiag_precision)
     zeros = jnp.zeros(a.shape[:-2] + (m, n - m), dtype=a.dtype)
     top = jnp.concatenate([l11, zeros], axis=-1)
     bot = jnp.concatenate([l21, l22], axis=-1)
     return jnp.concatenate([top, bot], axis=-2)
 
 
-@partial(jax.custom_vjp, nondiff_argnums=(1, 2))
-def _cholesky_impl(a, method, precision):
-    # recursive + SYRK-lower won the measured shoot-out at n=32k (HIGH
-    # precision): recursive 406ms -> 319ms with SYRK-lower; a left-looking
-    # panel sweep (exact n^3/3 GEMM FLOPs on paper) measured 487ms because
-    # XLA does not alias the per-panel 4GB buffer updates in place. See
-    # PERF.md for the full table.
+@partial(jax.custom_vjp, nondiff_argnums=(1,))
+def _cholesky_impl(a, precision):
     if precision == "mixed":
-        return _chol_recursive(a, method, _HI, offdiag_precision=_HIGH)
+        return _chol_recursive(a, _HI, offdiag_precision=_HIGH)
     if precision == "mixed_fast":
-        # diagonal path at 3-pass bf16 (the production default that the
-        # 2e-4 residual gate already accepts), strictly-off-diagonal
-        # trailing updates at 1-pass bf16 (the MXU's full rate) — the
-        # aggressive end of the round-4 precision frontier; gate on the
-        # reconstruction residual before trusting it
-        return _chol_recursive(a, method, _HIGH,
+        # diagonal path at HIGH, strictly-off-diagonal trailing updates
+        # at DEFAULT — the aggressive end of the precision frontier; gate
+        # on the reconstruction residual before trusting it
+        return _chol_recursive(a, _HIGH,
                                offdiag_precision=jax.lax.Precision.DEFAULT)
-    return _chol_recursive(a, method, precision)
+    return _chol_recursive(a, precision)
 
 
-def _cholesky_fwd(a, method, precision):
-    l = _cholesky_impl(a, method, precision)
+def _cholesky_fwd(a, precision):
+    l = _cholesky_impl(a, precision)
     return l, l
 
 
-def _cholesky_bwd(method, precision, l, l_bar):
+def _cholesky_bwd(precision, l, l_bar):
     """Standard Cholesky reverse rule (Murray 2016, eq. 8-10).
 
     A_bar = 1/2 L^{-T} (P + P^T) L^{-1},  P = Phi(L^T L_bar),
@@ -147,15 +134,12 @@ def _cholesky_bwd(method, precision, l, l_bar):
     # batched-safe diagonal embedding (diagflat would flatten batch dims)
     diag_p = jnp.diagonal(p, axis1=-2, axis2=-1)
     p = jnp.tril(p) - 0.5 * diag_p[..., None, :] * jnp.eye(n, dtype=p.dtype)
-    # S = L^{-T} (P + P^T) L^{-1}: two full n x n triangular solves — on
-    # the gradient critical path of every fit/HMC step. XLA's native
-    # triangular_solve is ~3x slower than the blocked recursion here
-    # (bench_ops round 2: the solves dominated lml_value_and_grad), so
-    # route both through the MXU-GEMM recursion; the right-side solve
-    # X L = tmp is expressed as (L^T X^T = tmp^T)^T.
+    # S = L^{-T} (P + P^T) L^{-1}: two full n x n triangular solves on the
+    # gradient path, both through the blocked recursion (GEMM-rich); the
+    # right-side solve X L = tmp is expressed as (L^T X^T = tmp^T)^T.
     sym = p + p.mT
-    tmp = trsm_ops.solve_ltx(l, sym, method="xla", precision=_HI)
-    s = trsm_ops.solve_ltx(l, tmp.mT, method="xla", precision=_HI).mT
+    tmp = trsm_ops.solve_ltx(l, sym, precision=_HI)
+    s = trsm_ops.solve_ltx(l, tmp.mT, precision=_HI).mT
     # s is symmetric by construction; 0.25*(s+s^T) = 0.5*s (Murray eq. 8)
     # with the average keeping it exactly symmetric in floating point
     a_bar = 0.25 * (s + s.mT)
@@ -165,32 +149,34 @@ def _cholesky_bwd(method, precision, l, l_bar):
 _cholesky_impl.defvjp(_cholesky_fwd, _cholesky_bwd)
 
 
+def auto_method(n):
+    """What cholesky(method="auto") runs for an n x n matrix: "xla" at
+    every size. On an H100 (700 W) at IEEE fp32, cuSOLVER's potrf beat the
+    blocked recursion at n=8192 (8.8 vs 13.0 ms) and n=32768 (0.276 vs
+    0.313 s), so "blocked" is an explicit option only (PERF.md)."""
+    return "xla"
+
+
 def cholesky(a, method="auto", precision=None):
     """Lower-triangular Cholesky factor of a symmetric PD matrix.
 
-    method: 'auto' (recursive-blocked on TPU for large N, XLA otherwise),
-            'xla', 'blocked' (recursive + XLA base), 'pallas' (recursive +
-            Pallas base-case potrf).
-    precision: matmul precision for the trailing updates (default HIGHEST =
-    true fp32; HIGH = bf16_3x is ~1.3x faster and acceptable for
-    well-conditioned covariances — validate against the oracle first).
+    method: 'auto' (see auto_method), 'xla' (lax.linalg.cholesky),
+            'blocked' (recursion + SYRK-lower, lax base case; its
+            precision policies are what the option is for).
+    precision: matmul precision of the blocked path's trailing updates
+    (default HIGHEST = IEEE fp32; HIGH runs them in TF32 on the GPU —
+    validate against the oracle first).
     "mixed": HIGHEST on the diagonal path (panels, TRSM, diagonal-
     containing SYRK quadrants <= 4k) + HIGH on strictly-off-diagonal
-    trailing updates — most of the N^3/3 FLOPs at the 3-pass rate while
+    trailing updates — most of the N^3/3 FLOPs at the faster rate while
     pivots are still formed in full fp32 (gate on the reconstruction
     residual; see benchmarks/bench_chol_precision.py).
     """
-    n = a.shape[-1]
     precision = _HI if precision is None else precision
     if method == "auto":
-        if jax.default_backend() == "tpu" and n > _BASE:
-            method = "blocked"
-        else:
-            method = "xla"
+        method = auto_method(a.shape[-1])
     if method == "xla":
         return lax.linalg.cholesky(a)
     if method == "blocked":
-        return _cholesky_impl(a, "xla", precision)
-    if method == "pallas":
-        return _cholesky_impl(a, "pallas", precision)
+        return _cholesky_impl(a, precision)
     raise ValueError(f"unknown cholesky method: {method}")

@@ -2,15 +2,11 @@
 
 The reference builds its dense N x N covariance with CUDA kernels over pairwise
 distances (BASELINE.json:5, "dense covariance-matrix construction (RBF/Matern
-kernels)"). The TPU-native equivalent here has two paths:
-
-- ``method="xla"``: plain jnp — XLA fuses the distance expansion into an MXU
-  GEMM for the cross term plus VPU elementwise kernel evaluation. Used for
-  small problems, CPU tests, and as the reference for the Pallas path.
-- ``method="pallas"``: a fused Pallas tile builder (see ``cov_pallas.py``):
-  each (block_m x block_n) tile computes scaled distances + the kernel
-  function entirely in VMEM and writes one K tile, with the noise term fused
-  onto the diagonal. Never materializes the distance matrix in HBM.
+kernels)"). Here it is plain jnp on every backend: XLA turns the
+distance expansion into one GEMM for the cross term plus a fused
+elementwise kernel evaluation. Writing K (4.3 GB at N=32k) is bound by
+device-memory bandwidth, a few ms beside a factorization of a second or
+more, so a hand-written builder has nothing to win (PERF.md).
 
 Hyperparameters are a dict of log-space values:
   ``log_lengthscale`` (d,), ``log_signal_var`` (), ``log_noise_var`` ().
@@ -29,7 +25,7 @@ SUPPORTED_KERNELS = ("rbf", "matern12", "matern32", "matern52", "rq",
 
 # Stationary families expressible as f(scaled squared distance) — these go
 # through kernel_fn(). "periodic" reduces to rbf on the cos/sin feature map
-# (periodic_rbf_view below); "linear" is a plain MXU GEMM (dot-product
+# (periodic_rbf_view below); "linear" is a plain GEMM (dot-product
 # kernel) and dispatches separately.
 STATIONARY_KERNELS = ("rbf", "matern12", "matern32", "matern52", "rq")
 
@@ -45,7 +41,7 @@ STATIONARY_KERNELS = ("rbf", "matern12", "matern32", "matern52", "rq")
 #              ...]}                             #   NO signal/noise inside
 # Factor amplitudes are unidentifiable inside a product, so amplitude
 # lives at the term level. Gradients flow by AD through the combination.
-# Composites are first-class in the Pallas/XLA builders, the ring (SP)
+# Composites are first-class in the XLA builders, the ring (SP)
 # builder, and the iterative matvec/pivoted-Cholesky tiles (all via
 # flatten_terms/factor_view/tile_eval below); only the ANALYTIC-gradient
 # cross-check paths stay base-family-only (AD is the default everywhere).
@@ -161,8 +157,9 @@ def periodic_features(X, log_period):
     exp-sine-squared (periodic, GPML eq. 4.31) kernel
     exp(-2 sum_d sin^2(pi delta_d/p_d)/ell_d^2) is EXACTLY the RBF kernel
     on phi(X) with each lengthscale duplicated across its cos/sin pair —
-    the whole MXU distance-expansion machinery (XLA and Pallas tiers)
-    serves the periodic family through this map unchanged.
+    the whole GEMM distance-expansion machinery (XLA builders and the
+    fused matvec kernel) serves the periodic family through this map
+    unchanged.
     """
     p = jnp.exp(log_period)
     ang = _TWO_PI * X / p
@@ -179,7 +176,7 @@ def periodic_rbf_view(params, *Xs):
 
 
 def extra_scalar(params, kind):
-    """The family-specific scalar for the tile builders' SMEM slot:
+    """The family-specific scalar the tile builders carry beside sf2:
     rq mixture alpha, linear bias variance, else 1.0 (unused)."""
     if kind == "rq" and "log_alpha" in params:
         return jnp.exp(params["log_alpha"]).astype(jnp.float32)
@@ -228,7 +225,7 @@ def factor_view(fparams, X, base):
     Returns (Xs, base', extra) such that the factor's unit-amplitude tile
     between row/col chunks of Xs is ``tile_eval(rows, cols, base',
     extra)`` — periodic is rewritten to rbf on the cos/sin embedding, so
-    every factor reduces to a scaled-dot-product tile on the MXU.
+    every factor reduces to a scaled-dot-product tile (one GEMM).
     """
     if base == "periodic":
         fparams, X = periodic_rbf_view(fparams, X)
@@ -241,7 +238,7 @@ def tile_eval(rows_s, cols_s, base, extra):
     """Unit-amplitude kernel tile between pre-scaled row/col chunks.
 
     base must be post-factor_view (no 'periodic'); extra is the rq alpha
-    or the linear bias (ignored otherwise). The cross term rides the MXU.
+    or the linear bias (ignored otherwise). The cross term is one GEMM.
     """
     cross = jnp.dot(rows_s, cols_s.T, preferred_element_type=jnp.float32,
                     precision=jax.lax.Precision.HIGHEST)
@@ -275,7 +272,7 @@ def kernel_diag(params, X, kind="rbf"):
 
 
 def scaled_sqdist(X1, X2, lengthscale):
-    """Pairwise squared distance after per-dim scaling; cross term rides the MXU."""
+    """Pairwise squared distance after per-dim scaling (cross term: GEMM)."""
     X1 = X1 / lengthscale
     X2 = X2 / lengthscale
     n1 = jnp.sum(X1 * X1, axis=-1)[:, None]
@@ -329,7 +326,7 @@ def train_covariance_xla(params, X, kind="rbf", jitter=1e-6, n_true=None):
 
     n_true: rows/cols at or beyond it become an exact identity block, so
     Cholesky/LML on zero-padded inputs equal the unpadded results (the
-    same contract as cov_pallas.train_covariance_pallas(pad_to=...)).
+    same contract as the distributed builders).
     """
     K = cross_covariance_xla(params, X, X, kind)
     sn2 = jnp.exp(params["log_noise_var"])
@@ -344,115 +341,17 @@ def train_covariance_xla(params, X, kind="rbf", jitter=1e-6, n_true=None):
     return K
 
 
-# Pallas kernels have no JVP rule (pl.program_id fails under jax.vjp's
-# forward trace), so differentiating the LML through the fused tile
-# builder crashes. The builders are therefore wrapped in custom_vjp: the
-# PRIMAL runs the Pallas kernel; the BACKWARD differentiates the
-# mathematically identical XLA builder (one extra O(N^2 d) covariance
-# evaluation inside the backward pass — exactly what AD would compute).
-
-@partial(jax.custom_vjp, nondiff_argnums=(3, 4))
-def _cross_cov_pallas_ad(params, X1, X2, kind, n_true):
-    from cugp_tpu.ops import cov_pallas
-
-    return cov_pallas.cross_covariance_pallas(
-        params, X1, X2, kind,
-        n1_true=n_true if n_true is not None else X1.shape[0])
-
-
-def _cross_cov_fwd(params, X1, X2, kind, n_true):
-    return _cross_cov_pallas_ad(params, X1, X2, kind, n_true), (params, X1, X2)
-
-
-def _cross_cov_bwd(kind, n_true, res, g):
-    params, X1, X2 = res
-    _, vjp = jax.vjp(
-        lambda p, a, b: cross_covariance_xla(p, a, b, kind, n_true=n_true),
-        params, X1, X2)
-    return vjp(g)
-
-
-_cross_cov_pallas_ad.defvjp(_cross_cov_fwd, _cross_cov_bwd)
-
-
-@partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4))
-def _train_cov_pallas_ad(params, X, kind, jitter, n_true):
-    from cugp_tpu.ops import cov_pallas
-
-    return cov_pallas.train_covariance_pallas(
-        params, X, kind, jitter,
-        n_true=n_true if n_true is not None else X.shape[0])
-
-
-def _train_cov_fwd(params, X, kind, jitter, n_true):
-    return _train_cov_pallas_ad(params, X, kind, jitter, n_true), (params, X)
-
-
-def _train_cov_bwd(kind, jitter, n_true, res, g):
-    params, X = res
-    _, vjp = jax.vjp(
-        lambda p, xx: train_covariance_xla(p, xx, kind, jitter,
-                                           n_true=n_true),
-        params, X)
-    return vjp(g)
-
-
-_train_cov_pallas_ad.defvjp(_train_cov_fwd, _train_cov_bwd)
-
-
-def _mask_padded_rows(K, n_true, n1):
-    if n_true is not None and n_true < n1:
-        rows = jnp.arange(n1)[:, None]
-        K = jnp.where(rows >= n_true, 0.0, K)
-    return K
-
-
-def cross_covariance(params, X1, X2, kind="rbf", method="auto", n_true=None):
-    """K(X1, X2) without noise. method: 'auto' | 'xla' | 'pallas'."""
-    if method == "auto":
-        method = "pallas" if _use_pallas(X1.shape[0], X2.shape[0]) else "xla"
-    if method == "pallas":
-        if is_composite(kind):
-            # each factor rides its own fused Pallas build; the combine is
-            # an elementwise op XLA fuses into the consumers
-            K = _composite_combine(
-                params, kind,
-                lambda fp, base: _cross_cov_pallas_ad(fp, X1, X2, base, None))
-            return _mask_padded_rows(K, n_true, X1.shape[0])
-        return _cross_cov_pallas_ad(params, X1, X2, kind, n_true)
+def cross_covariance(params, X1, X2, kind="rbf", n_true=None):
+    """K(X1, X2) without noise (the XLA builder on every backend)."""
     return cross_covariance_xla(params, X1, X2, kind, n_true=n_true)
 
 
-def train_covariance(params, X, kind="rbf", jitter=1e-6, method="auto",
-                     n_true=None):
-    """K(X, X) + noise/jitter diagonal. method: 'auto' | 'xla' | 'pallas'.
+def train_covariance(params, X, kind="rbf", jitter=1e-6, n_true=None):
+    """K(X, X) + noise/jitter diagonal (the XLA builder on every backend).
 
     n_true: see train_covariance_xla — identity block beyond the true rows.
     """
-    if method == "auto":
-        method = "pallas" if _use_pallas(X.shape[0], X.shape[0]) else "xla"
-    if method == "pallas":
-        if is_composite(kind):
-            n = X.shape[0]
-            K = cross_covariance(params, X, X, kind, method="pallas")
-            sn2 = jnp.exp(params["log_noise_var"])
-            K = K + (sn2 + jitter * signal_scale(params)) * jnp.eye(
-                n, dtype=K.dtype)
-            if n_true is not None and n_true < n:
-                rows = jnp.arange(n)[:, None]
-                cols = jnp.arange(n)[None, :]
-                pad = (rows >= n_true) | (cols >= n_true)
-                K = jnp.where(pad, jnp.where(rows == cols, 1.0, 0.0), K)
-            return K
-        return _train_cov_pallas_ad(params, X, kind, jitter, n_true)
     return train_covariance_xla(params, X, kind, jitter, n_true=n_true)
-
-
-def _use_pallas(n1, n2):
-    """Pallas tiles pay off for large K on TPU; small/CPU goes through XLA."""
-    if jax.default_backend() != "tpu":
-        return False
-    return n1 >= 1024 and n2 >= 1024
 
 
 def init_params(d=1, lengthscale=1.0, signal_var=1.0, noise_var=0.1,

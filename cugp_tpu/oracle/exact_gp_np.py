@@ -1,6 +1,6 @@
 """Float64 NumPy/SciPy exact-GP oracle.
 
-This is the correctness oracle and speedup denominator for the TPU engine,
+This is the correctness oracle and speedup denominator for the JAX engine,
 standing in for the reference's serial CPU baseline (see SURVEY.md section 0:
 the reference mount was empty, so the float64 closed-form posterior computed
 here IS the operative accuracy reference — exact GP regression has a unique

@@ -3,7 +3,7 @@
 Mirrors cugp_tpu.models.gpc_multiclass (GPML Algorithms 3.3/3.4) in double
 precision on CPU — same role as gpc_np for the binary model. Written with
 explicit per-class loops and, where cheap, the BRUTE-FORCE Cn x Cn forms
-of W and B so the tests can verify the structured identities the TPU
+of W and B so the tests can verify the structured identities the JAX
 model relies on (determinant split, Woodbury form of (K + W^-1)^-1).
 """
 
@@ -78,7 +78,7 @@ def laplace_lml(params, X, Y, kind="rbf", jitter=1e-6, num_newton=100,
     """Approximate LML (GPML eq. 3.44). With brute_force_logdet=True the
     -1/2 log|B| term is computed from the dense Cn x Cn matrix instead of
     the structured prod|L_c|^2 |M|^2 split — used by tests to certify the
-    identity the TPU model depends on."""
+    identity the JAX model depends on."""
     K = train_covariance(params, X, kind=kind, jitter=jitter)
     f, a = _mode(K, Y, num_newton)
     pi = _softmax(f)

@@ -1,7 +1,7 @@
 """Float64 NumPy oracle for Laplace-approximation GP classification.
 
 Mirrors cugp_tpu.models.gpc (GPML Algorithms 3.1/3.2) in double precision
-on CPU — the accuracy reference for the TPU path, same role as
+on CPU — the accuracy reference for the JAX path, same role as
 exact_gp_np for regression (SURVEY.md section 0).
 """
 

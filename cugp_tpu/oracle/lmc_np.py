@@ -1,7 +1,7 @@
 """float64 brute-force oracle for the LMC multi-output GP (models/lmc.py).
 
 Builds the dense pn x pn joint covariance kron(B, Kf + jitter*sf2*I) +
-sn2*I explicitly (the thing the TPU model NEVER forms — it uses the
+sn2*I explicitly (the thing the JAX model NEVER forms — it uses the
 eigendecomposition rotation) and computes LML / posterior by direct
 Cholesky. Output-major vec ordering: block j of vec(Y) is output j's
 column, matching the rotated per-output algebra.

@@ -1,16 +1,17 @@
 """Distributed Cholesky over the chip mesh — component C3 primary path.
 
-TPU-native design for BASELINE.json:11 (N=100k distributed factorization):
+Design for BASELINE.json:11 (N=100k distributed factorization):
 a chunked right-looking sweep whose shapes are all static (the Python loop
 over chunks unrolls at trace time), so XLA/GSPMD partitions every TRSM and
-SYRK across the ('r','c') grid and emits ICI collectives itself:
+SYRK across the ('r','c') grid and emits the collectives itself (NCCL
+over NVLink on a GPU host):
 
   for each diagonal chunk s (size B_c, e.g. 8192):
     1. L_ss   = chol(K[s,s])            -- replicated single-chip factor
                                            (B_c^3/3 FLOPs, negligible)
     2. P      = K[s+1:, s] L_ss^{-T}    -- distributed TRSM (row-sharded)
     3. K[s+1:, s+1:] -= P P^T           -- distributed SYRK (2D-sharded,
-                                           the dominant FLOPs, on the MXU)
+                                           the dominant FLOPs, as GEMMs)
 
 Each trailing submatrix is re-constrained to P('r','c'), so GSPMD rebalances
 the shrinking trailing block across the full grid every step — the same
@@ -44,7 +45,8 @@ def distributed_cholesky(K, mesh, chunk=8192, method="auto"):
     """Lower Cholesky factor of 2D-sharded K. Call under jit.
 
     K: (n, n) symmetric PD, n a multiple of 256 (pad upstream with the
-    identity-block scheme from cov_pallas). chunk: diagonal chunk size.
+    identity-block scheme of kernels.train_covariance_xla(n_true=...)).
+    chunk: diagonal chunk size.
     """
     n = K.shape[-1]
     chunk = min(chunk, n)
@@ -97,8 +99,7 @@ def distributed_lml(params, X, y, mesh, kind="rbf", jitter=1e-6, chunk=8192,
     spec2d = P(row_spec[0], "c")
     X = _wsc(X, mesh, P(row_spec[0], None))
     y = _wsc(y, mesh, row_spec)
-    K = kernel_ops.train_covariance(params, X, kind=kind, jitter=jitter,
-                                    method=cov_method)
+    K = kernel_ops.train_covariance(params, X, kind=kind, jitter=jitter)
     K = _wsc(K, mesh, spec2d)
     L = distributed_cholesky(K, mesh, chunk=chunk)
     z = trsm_ops.solve_lx(L, y)

@@ -2,7 +2,7 @@
 
 Compiler-driven sharding tier: the covariance/Cholesky pipeline runs under
 jit with explicit sharding constraints so XLA partitions the O(N^2) work and
-inserts ICI collectives (BASELINE.json:10, "single-host sharded covariance +
+inserts the collectives (BASELINE.json:10, "single-host sharded covariance +
 Cholesky across 4 chips"). The manually-scheduled block-cyclic factorization
 lives in ``block_cyclic.py``; this module is the GSPMD alternative and the
 glue for end-to-end sharded training steps.

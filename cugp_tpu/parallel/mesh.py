@@ -1,13 +1,15 @@
 """Device-mesh construction — component C9 (SURVEY.md section 2).
 
 The reference is single-GPU; all multi-chip capability is new surface
-(BASELINE.json:5, "single-GPU execution -> GSPMD-sharded multi-host pod").
+(BASELINE.json:5, "single-GPU execution -> GSPMD-sharded multi-host").
 Axes:
   'dp' — data parallel: independent HMC chains / optimizer restarts
   'r', 'c' — 2D tensor-parallel grid for K/L (covariance, Cholesky)
 The N (training-point) axis is the sequence-parallel axis: rows of X/y are
-sharded over 'r' (SURVEY.md section 2.1). Collectives ride ICI: panel
-broadcasts along 'r'/'c', chain statistics psum along 'dp'.
+sharded over 'r' (SURVEY.md section 2.1). Collectives (panel broadcasts
+along 'r'/'c', chain statistics psum along 'dp') go to NCCL; the cards
+of a GPU host are joined all to all by NVLink, so the grid is a plain
+most-square factorization with no torus layout to follow.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Sequence-parallel covariance construction (SURVEY.md section 2.1, "ring
 pattern"): the N training points are the "sequence"; X is row-sharded over
-the mesh axis and shards rotate around the ICI ring with ``ppermute``, so
+the mesh axis and shards rotate around the ring with ``ppermute``, so
 each chip fills its row-block of K one column-block per step without ever
 holding the full X — the ring-attention analog for the O(N^2) pairwise
 kernel computation. No N x N intermediate and no all-gather of X.

@@ -1,7 +1,7 @@
-"""Pod-sharded NUTS/HMC: chains over the 'dp' mesh axis — C8 x C9/C10.
+"""Mesh-sharded NUTS/HMC: chains over the 'dp' mesh axis — C8 x C9/C10.
 
 BASELINE.json:5: "hyperparameter HMC chains are vmapped per chip and
-sharded across a multi-host TPU pod slice with step-size adaptation and
+sharded across a multi-host slice with step-size adaptation and
 acceptance statistics reduced via psum collectives". Realization: shard_map
 over 'dp'; each chip runs the vmapped sampler on its local chains with
 ``psum_axis='dp'`` so dual-averaging and mass-matrix moments are reduced

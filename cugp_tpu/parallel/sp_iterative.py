@@ -4,9 +4,9 @@ beyond-parity surface; the SP/ring analog of the iterative tier).
 The single-chip matrix-free tier (inference/iterative) lifted exact-GP
 inference to n=131k on one chip; this module shards the SAME schedule
 over a mesh axis: X, y, and every CG vector are row-sharded, the kernel
-matvec rotates shards around the ICI ring with ``ppermute`` (each step
-builds one (n_loc, n_loc) tile in registers/VMEM and contracts it
-immediately — K never exists, not even tile-rows of it in HBM), and CG's
+matvec rotates shards around the ring with ``ppermute`` (each step
+builds one (n_loc, n_loc) tile and contracts it immediately — K never
+exists as a whole), and CG's
 scalar reductions ride ``psum``. Per-chip memory is O(n_loc * (d + r)),
 so capacity scales linearly with the ring size on top of the
 single-chip 131k envelope.
@@ -110,7 +110,7 @@ def _woodbury_apply_sharded(Lk_loc, Lg, s2, axis):
         t = jax.lax.psum(
             jnp.matmul(Lk_loc.mT, r_loc,
                        precision=jax.lax.Precision.HIGHEST), axis)
-        t = trsm_ops.cho_solve(Lg, t, method="xla")
+        t = trsm_ops.cho_solve(Lg, t)
         return (r_loc - jnp.matmul(
             Lk_loc, t, precision=jax.lax.Precision.HIGHEST)) / s2
 

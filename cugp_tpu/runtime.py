@@ -1,9 +1,12 @@
-"""Multi-host runtime bring-up (SURVEY.md section 3.5).
+"""Process-level runtime set-up (SURVEY.md section 3.5).
 
-DCN bootstrap (`jax.distributed.initialize`) + mesh construction + dtype
-policy. The reference is single-process; this is new surface for the
-multi-host configs (BASELINE.json:11). ICI carries all compute collectives
-(panel broadcasts, chain psums); DCN is only coordination + data feed.
+- ``configure_compile_cache``: JAX's persistent compilation cache, set
+  once when the package is imported.
+- ``initialize``: multi-process bring-up (`jax.distributed.initialize`).
+  The reference is single-process; this is new surface for the
+  multi-process configs (BASELINE.json:11). Compute collectives (panel
+  broadcasts, chain psums) go to NCCL over NVLink between the cards of a
+  host; the coordinator only bootstraps the processes.
 """
 
 from __future__ import annotations
@@ -13,6 +16,23 @@ import os
 from typing import Optional
 
 import jax
+
+CACHE_ENV = "JAX_COMPILATION_CACHE_DIR"
+# <checkout>/.jax_cache: a fixed path, because the path is part of what the
+# cache is found by (.gitignore lists it)
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
+
+
+def configure_compile_cache(environ=None):
+    """Use $JAX_COMPILATION_CACHE_DIR when it is set (JAX reads it itself,
+    so nothing is set here); otherwise <checkout>/.jax_cache. Returns the
+    directory in use."""
+    environ = os.environ if environ is None else environ
+    if environ.get(CACHE_ENV):
+        return environ[CACHE_ENV]
+    jax.config.update("jax_compilation_cache_dir", DEFAULT_CACHE_DIR)
+    return DEFAULT_CACHE_DIR
 
 
 @dataclasses.dataclass
@@ -27,16 +47,15 @@ class RuntimeInfo:
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None):
-    """Bring up jax.distributed when running multi-host; no-op single host.
+    """Bring up jax.distributed for a multi-process job; no-op otherwise.
 
-    Args may come from env (JAX discovers them on TPU pods automatically);
-    explicit values support the CPU multi-process test harness
-    (tests/multihost/run_multihost.py).
+    The coordinator (``host:port``), the process count and this process's
+    id come from the arguments, or from COORDINATOR_ADDRESS in the
+    environment (then JAX reads the rest itself); the CPU multi-process
+    test harness (tests/multihost/run_multihost.py) passes them
+    explicitly.
     """
-    explicit = coordinator_address is not None
-    multi_env = any(v in os.environ for v in
-                    ("COORDINATOR_ADDRESS", "MEGASCALE_COORDINATOR_ADDRESS"))
-    if explicit or multi_env:
+    if coordinator_address is not None or "COORDINATOR_ADDRESS" in os.environ:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
             num_processes=num_processes,

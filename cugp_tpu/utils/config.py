@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 class ModelConfig:
     kind: str = "rbf"   # rbf | matern12 | matern32 | matern52 | rq | periodic | linear
     jitter: float = 1e-6
-    method: str = "auto"         # auto | xla | blocked | pallas
+    method: str = "auto"         # dense Cholesky: auto | xla | blocked
     basis: str = ""              # "" (zero mean) | constant | linear
     normalize_y: bool = False    # standardize targets inside the GP facade
     inference: str = "laplace"   # classify: laplace | ep (binary only)

@@ -8,7 +8,7 @@ mechanism for single-host jobs, composing the pieces that already exist:
     CLI --metrics_file) doubles as a HEARTBEAT — its mtime advances every
     logged step;
   - failure detection: the supervisor declares the child dead when the
-    heartbeat stalls past --timeout (hung tunnel/compiler/device) or the
+    heartbeat stalls past --timeout (hung compiler/device) or the
     process exits nonzero (crash);
   - recovery: kill the process group and relaunch the SAME command; the
     command's own --checkpoint_dir resume (MAP params via GP.load, full

@@ -1,7 +1,7 @@
 """Config-4/5 example: the distributed exact-GP pipeline on a device mesh.
 
-Runs on 8 virtual CPU devices by default (no TPU pod needed); on a real
-slice, drop --fake and the same code spans the chips (and hosts, with
+Runs on 8 virtual CPU devices by default (no GPUs needed); on a multi-GPU
+host, drop --fake and the same code spans the cards (and hosts, with
 cugp_tpu.runtime.initialize).
 
 Pipeline (SURVEY.md section 2.1):

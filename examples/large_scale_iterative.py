@@ -1,8 +1,8 @@
 """Matrix-free exact GP at scales where K cannot exist (round-4 surface).
 
 Demonstrates the three large-n entry points on a size that runs anywhere
-(bump --n on real hardware; the same code captured n=100k training and
-n=131k inference on one TPU chip, PERF.md):
+(bump --n on a GPU, where the fused Pallas/Triton matvec carries the
+CG iterations; chip_smoke.py runs n=131072 on one card):
 
   1. GP.fit_iterative        — hyperparameter LEARNING, K never formed
   2. GP.predict_iterative    — preconditioned-CG posterior

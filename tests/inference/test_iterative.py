@@ -80,17 +80,19 @@ def test_posterior_iterative_matches_dense(setup):
 
 def test_pallas_fused_matvec_matches_dense(setup):
     """Fused tile-matvec kernel (interpret mode) vs dense K @ v."""
-    from cugp_tpu.ops import cov_pallas
+    from cugp_tpu.ops import matvec_pallas
 
     params, X, y = setup
     K = kops.train_covariance_xla(params, X, jitter=1e-6)
     rng = np.random.default_rng(2)
     v = jnp.asarray(rng.standard_normal(500), jnp.float32)
-    out = cov_pallas.train_cov_matvec_pallas(params, X, v, jitter=1e-6)
+    out = matvec_pallas.train_cov_matvec(params, X, v, jitter=1e-6,
+                                         interpret=True)
     np.testing.assert_allclose(np.asarray(out), np.asarray(K @ v),
                                rtol=1e-4, atol=1e-4)
     V = jnp.asarray(rng.standard_normal((500, 5)), jnp.float32)
-    outV = cov_pallas.train_cov_matvec_pallas(params, X, V, jitter=1e-6)
+    outV = matvec_pallas.train_cov_matvec(params, X, V, jitter=1e-6,
+                                          interpret=True)
     np.testing.assert_allclose(np.asarray(outV), np.asarray(K @ V),
                                rtol=1e-4, atol=1e-4)
 

@@ -1,8 +1,8 @@
-"""Multi-host smoke test: N CPU processes over DCN (SURVEY.md section 4).
+"""Multi-host smoke test: N CPU processes over localhost (SURVEY.md section 4).
 
 Launches itself `--procs` times with distinct process ids against a local
 coordinator, builds a global mesh, and runs one psum + one sharded LML to
-exercise the jax.distributed bootstrap without TPU hardware.
+exercise the jax.distributed bootstrap without GPU hardware.
 
 Usage: python tests/multihost/run_multihost.py            # launcher
        (workers are spawned internally with _WORKER=1)
@@ -53,7 +53,7 @@ def worker():
     v = float(val)
     assert v == v, "nan lml"
 
-    # the genuinely-sharded factorization (chunked sweep) over DCN+ICI
+    # the genuinely-sharded factorization (chunked sweep) across processes
     from cugp_tpu.parallel import distributed_chol
 
     v2 = float(jax.jit(lambda p, X, y: distributed_chol.distributed_lml(
@@ -116,7 +116,7 @@ def launcher(procs=2):
             "CKPT_DIR": ck_root,
             # 4 virtual CPU devices per process -> a real 2D ('r','c')
             # grid spanning processes, so the relayout all_to_all and the
-            # block-cyclic collectives genuinely cross the DCN boundary
+            # block-cyclic collectives genuinely cross the process boundary
             "XLA_FLAGS": (env_base.get("XLA_FLAGS", "")
                           + " --xla_force_host_platform_device_count=4"
                           ).strip(),

@@ -287,22 +287,6 @@ def test_iterative_lml_and_posterior_composite():
     assert float(resid) >= -1e-5
 
 
-def test_composite_pallas_matches_xla_interpret():
-    """method='pallas' composes per-factor fused tile builds (interpret
-    mode on CPU) — must equal the XLA composite."""
-    X, _ = _data(n=160, d=2, seed=7)
-    kind = "periodic*rbf+linear"
-    params = kernel_ops.default_init(kind, d=2, noise_var=0.05)
-    Kx = kernel_ops.train_covariance(params, X, kind=kind, method="xla")
-    Kp = kernel_ops.train_covariance(params, X, kind=kind, method="pallas")
-    np.testing.assert_allclose(Kp, Kx, rtol=2e-5, atol=2e-5)
-    Cx = kernel_ops.cross_covariance(params, X, X[:32], kind=kind,
-                                     method="xla")
-    Cp = kernel_ops.cross_covariance(params, X, X[:32], kind=kind,
-                                     method="pallas")
-    np.testing.assert_allclose(Cp, Cx, rtol=2e-5, atol=2e-5)
-
-
 def test_composite_matches_float64_oracle():
     """Full-pipeline accuracy vs the independent float64 oracle."""
     from cugp_tpu.oracle import exact_gp_np as oracle

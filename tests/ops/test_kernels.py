@@ -21,7 +21,7 @@ def test_cross_covariance_matches_oracle(kind, rng, default_params):
     p = dict(default_params, log_lengthscale=np.log([0.8, 1.1, 0.6]))
     K_ref = oracle.kernel_matrix(p, X1, X2, kind)
     K = kops.cross_covariance(_params32(p), jnp.asarray(X1, jnp.float32),
-                              jnp.asarray(X2, jnp.float32), kind, method="xla")
+                              jnp.asarray(X2, jnp.float32), kind)
     np.testing.assert_allclose(np.asarray(K), K_ref, rtol=2e-5, atol=2e-6)
 
 
@@ -31,7 +31,7 @@ def test_train_covariance_diag(kind, rng, default_params):
     p = dict(default_params, log_lengthscale=np.log([0.8, 1.1]))
     K_ref = oracle.train_covariance(p, X, kind, jitter=1e-6)
     K = kops.train_covariance(_params32(p), jnp.asarray(X, jnp.float32), kind,
-                              jitter=1e-6, method="xla")
+                              jitter=1e-6)
     np.testing.assert_allclose(np.asarray(K), K_ref, rtol=2e-5, atol=2e-6)
     # symmetric, PD diag
     np.testing.assert_allclose(np.asarray(K), np.asarray(K).T, atol=1e-6)
@@ -57,17 +57,14 @@ def test_rq_kernel_matches_oracle(rng, default_params):
              log_alpha=np.array(np.log(2.0)))
     K_ref = oracle.kernel_matrix(p, X1, X2, "rq")
     K = kops.cross_covariance(_params32(p), jnp.asarray(X1, jnp.float32),
-                              jnp.asarray(X2, jnp.float32), "rq",
-                              method="xla")
+                              jnp.asarray(X2, jnp.float32), "rq")
     np.testing.assert_allclose(np.asarray(K), K_ref, rtol=2e-5, atol=2e-6)
     # rq -> rbf as alpha -> inf
     p_big = dict(p, log_alpha=np.array(np.log(1e6)))
     K_rq = kops.cross_covariance(_params32(p_big), jnp.asarray(X1, jnp.float32),
-                                 jnp.asarray(X2, jnp.float32), "rq",
-                                 method="xla")
+                                 jnp.asarray(X2, jnp.float32), "rq")
     K_rbf = kops.cross_covariance(_params32(p), jnp.asarray(X1, jnp.float32),
-                                  jnp.asarray(X2, jnp.float32), "rbf",
-                                  method="xla")
+                                  jnp.asarray(X2, jnp.float32), "rbf")
     np.testing.assert_allclose(np.asarray(K_rq), np.asarray(K_rbf), atol=1e-4)
 
 

@@ -2,9 +2,9 @@
 
 Round-2 surface beyond the reference's RBF/Matern inventory
 (BASELINE.json:5); validated against the float64 oracle across every tier:
-XLA builder, Pallas tile builder (interpret mode on CPU), analytic
-gradients vs jax.grad vs oracle, posterior (exercising the non-stationary
-kernel_diag path), and the iterative matrix-free tier.
+XLA builder, analytic gradients vs jax.grad vs oracle, posterior
+(exercising the non-stationary kernel_diag path), and the iterative
+matrix-free tier.
 """
 
 import jax
@@ -13,7 +13,6 @@ import numpy as np
 import pytest
 
 from cugp_tpu.models import exact_gp
-from cugp_tpu.ops import cov_pallas
 from cugp_tpu.ops import kernels as kops
 from cugp_tpu.oracle import exact_gp_np as oracle
 
@@ -36,24 +35,8 @@ def test_cross_covariance_matches_oracle(kind, rng):
     X2 = rng.uniform(-2, 2, size=(33, 3)).astype(np.float32)
     p = _params(kind)
     K_ref = oracle.kernel_matrix(p, X1, X2, kind)
-    K = kops.cross_covariance(p, jnp.asarray(X1), jnp.asarray(X2), kind,
-                              method="xla")
+    K = kops.cross_covariance(p, jnp.asarray(X1), jnp.asarray(X2), kind)
     np.testing.assert_allclose(np.asarray(K), K_ref, rtol=2e-5, atol=3e-6)
-
-
-@pytest.mark.parametrize("kind", NEW_KINDS)
-def test_pallas_builders_match_oracle(kind, rng):
-    X1 = rng.uniform(-2, 2, size=(65, 3)).astype(np.float32)
-    X2 = rng.uniform(-2, 2, size=(33, 3)).astype(np.float32)
-    p = _params(kind)
-    K_ref = oracle.kernel_matrix(p, X1, X2, kind)
-    K = cov_pallas.cross_covariance_pallas(p, jnp.asarray(X1),
-                                           jnp.asarray(X2), kind)
-    np.testing.assert_allclose(np.asarray(K), K_ref, rtol=2e-5, atol=3e-6)
-    Kt_ref = oracle.train_covariance(p, X1, kind, jitter=1e-6)
-    Kt = cov_pallas.train_covariance_pallas(p, jnp.asarray(X1), kind,
-                                            jitter=1e-6)
-    np.testing.assert_allclose(np.asarray(Kt), Kt_ref, rtol=2e-5, atol=3e-6)
 
 
 def test_periodic_is_periodic(rng):
@@ -61,11 +44,9 @@ def test_periodic_is_periodic(rng):
     p = _params("periodic", d=1)
     p["log_period"] = jnp.log(jnp.asarray([1.5]))
     X = rng.uniform(-2, 2, size=(20, 1)).astype(np.float32)
-    K0 = kops.cross_covariance(p, jnp.asarray(X), jnp.asarray(X), "periodic",
-                               method="xla")
+    K0 = kops.cross_covariance(p, jnp.asarray(X), jnp.asarray(X), "periodic")
     K1 = kops.cross_covariance(p, jnp.asarray(X),
-                               jnp.asarray(X) + 1.5, "periodic",
-                               method="xla")
+                               jnp.asarray(X) + 1.5, "periodic")
     np.testing.assert_allclose(np.asarray(K0), np.asarray(K1), atol=2e-5)
 
 
@@ -104,8 +85,7 @@ def test_kernel_diag_linear(rng):
     X = rng.uniform(-2, 2, size=(30, 2)).astype(np.float32)
     p = _params("linear", d=2)
     dg = kops.kernel_diag(p, jnp.asarray(X), "linear")
-    K = kops.cross_covariance(p, jnp.asarray(X), jnp.asarray(X), "linear",
-                              method="xla")
+    K = kops.cross_covariance(p, jnp.asarray(X), jnp.asarray(X), "linear")
     np.testing.assert_allclose(np.asarray(dg), np.diag(np.asarray(K)),
                                rtol=1e-5, atol=1e-6)
 

@@ -60,38 +60,30 @@ def test_cho_solve(rng):
     np.testing.assert_allclose(np.asarray(x), x_ref, rtol=2e-2, atol=1e-3)
 
 
-@pytest.mark.parametrize("left,transpose", [(True, False), (True, True),
-                                            (False, False), (False, True)])
-def test_pallas_trsm_interpret(left, transpose, rng):
-    from cugp_tpu.ops import trsm_pallas
+@pytest.mark.parametrize("solve", ["lx", "ltx", "xlt"])
+@pytest.mark.parametrize("n", [300, 520])
+def test_recursive_solves_two_levels(solve, n, rng, monkeypatch):
+    """The recursion (split, GEMM coupling, base triangular_solve) at two
+    levels and a split that is not a power of two, via a small base."""
+    from cugp_tpu.ops import blocking
 
-    n, k = 384, 100
+    monkeypatch.setattr(trsm_ops, "_BASE", 128)
+    monkeypatch.setattr(blocking, "ALIGN", 64)
     l = _lower(n, rng)
-    b = rng.standard_normal((n, k) if left else (k, n))
-    if left and not transpose:
+    k = 9
+    if solve == "lx":
+        b = rng.standard_normal((n, k))
         x_ref = sla.solve_triangular(l, b, lower=True)
-    elif left and transpose:
+        x = trsm_ops.solve_lx(jnp.asarray(l, jnp.float32),
+                              jnp.asarray(b, jnp.float32))
+    elif solve == "ltx":
+        b = rng.standard_normal((n, k))
         x_ref = sla.solve_triangular(l, b, lower=True, trans="T")
-    elif not left and not transpose:
-        x_ref = sla.solve_triangular(l.T, b.T, lower=False).T  # X L = B
+        x = trsm_ops.solve_ltx(jnp.asarray(l, jnp.float32),
+                               jnp.asarray(b, jnp.float32))
     else:
+        b = rng.standard_normal((k, n))
         x_ref = sla.solve_triangular(l, b.T, lower=True).T  # X L^T = B
-    x = trsm_pallas.trsm(jnp.asarray(l, jnp.float32),
-                         jnp.asarray(b, jnp.float32), left=left,
-                         transpose=transpose, interpret=True)
+        x = trsm_ops.solve_xlt(jnp.asarray(l, jnp.float32),
+                               jnp.asarray(b, jnp.float32))
     np.testing.assert_allclose(np.asarray(x), x_ref, rtol=2e-2, atol=1e-3)
-
-
-def test_pallas_trsm_right_side_vector(rng):
-    """Right-side solves with 1-D b (regression: xt.mT crash)."""
-    from cugp_tpu.ops import trsm_pallas
-
-    n = 128
-    l = _lower(n, rng)
-    b = rng.standard_normal(n)
-    x = trsm_pallas.trsm(jnp.asarray(l, jnp.float32),
-                         jnp.asarray(b, jnp.float32), left=False,
-                         transpose=True, interpret=True)
-    x_ref = sla.solve_triangular(l, b, lower=True)  # x L^T = b  <=>  L x = b
-    assert x.shape == (n,)
-    np.testing.assert_allclose(np.asarray(x), x_ref, rtol=2e-3, atol=1e-4)

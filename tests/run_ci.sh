@@ -6,14 +6,14 @@
 #            iterating; every test not marked deep/slow).
 #   deep   — `pytest -m "deep or slow"`: the heavy dist/sampler/model
 #            tests (~20+ min of 2-CPU wall).
-#   multihost — the DCN bootstrap scripts (2- and 4-process) and the
+#   multihost — the jax.distributed bootstrap scripts (2- and 4-process) and the
 #            supervised coordinator-kill recovery run, which no pytest
 #            marker previously invoked (they rot silently otherwise).
 #
 # Usage:
 #   tests/run_ci.sh quick          # smoke only
 #   tests/run_ci.sh deep           # heavy tier only
-#   tests/run_ci.sh multihost      # DCN scripts only
+#   tests/run_ci.sh multihost      # multi-process scripts only
 #   tests/run_ci.sh all            # everything (default)
 set -u
 cd "$(dirname "$0")/.."
@@ -35,7 +35,7 @@ if [ "$tier" = deep ] || [ "$tier" = all ]; then
 fi
 
 if [ "$tier" = multihost ] || [ "$tier" = all ]; then
-  # 2- and 4-process DCN runs + supervised coordinator-SIGKILL recovery
+  # 2- and 4-process runs + supervised coordinator-SIGKILL recovery
   run timeout 600 python tests/multihost/run_multihost.py 2
   run timeout 600 python tests/multihost/run_multihost.py 4
   run timeout 900 python tests/multihost/run_supervised_multihost.py

@@ -1,7 +1,7 @@
 """Multiclass softmax-Laplace GPC vs the float64 oracle (GPML Alg 3.3/3.4).
 
 Round-3 VERDICT item #6. Includes brute-force certification of the two
-structured identities the TPU model relies on:
+structured identities the JAX model relies on:
   (a) |I + W^1/2 K W^1/2| = prod_c |L_c|^2 * |sum_c E_c|
   (b) (K + W^-1)^-1 = W^1/2 B^-1 W^1/2 = E - E R (sum E_c)^-1 R^T E
 """
